@@ -1,13 +1,13 @@
 """Weak-scaling harness: sharded NS steps over growing device grids.
 
-On a real TPU pod slice this measures the >=85% weak-scaling target
-(BASELINE.md): per-device problem size fixed, device count grown, the
-step sharded via NS.shard (GSPMD emits halo collective-permutes over
-ICI). On a single chip there is nothing to scale over, so
-``--virtual N`` runs the same code path on N virtual CPU devices —
-that validates the sharded program structure and communication
-pattern, NOT ICI bandwidth (virtual devices share one host's memory
-bus, so "efficiency" there reflects host contention).
+On a host with several GPUs this measures the >=85% weak-scaling
+target (BASELINE.md): per-device problem size fixed, device count
+grown, the step sharded via NS.shard (GSPMD emits halo
+collective-permutes, which XLA hands to NCCL). ``--virtual N`` runs
+the same code path on N virtual CPU devices — that validates the
+sharded program structure and communication pattern, NOT link
+bandwidth (virtual devices share one host's memory bus, so
+"efficiency" there reflects host contention).
 
 Usage:
   python bench_scaling.py [--base 128] [--steps 10] [--virtual 8]
@@ -17,10 +17,11 @@ series to FILE.json.
 """
 
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
@@ -42,6 +43,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
+    from fluca_tpu.utils import config
+
+    config.use_compile_cache()
     from fluca_tpu.mesh.cart import CartMesh
     from fluca_tpu.ns.bc import BCType, BoundaryCondition, \
         zero_velocity_bc

@@ -15,7 +15,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+from fluca_tpu.utils import config  # noqa: E402
+
+config.use_compile_cache()
 
 import numpy as np
 

@@ -1,6 +1,6 @@
 """Turbulent channel at Re_tau = 180, 128^3 wall-clustered
 (BASELINE #5's word "turbulent"; VERDICT r3 item 6): run long enough
-on TPU to show (a) perturbation energy does NOT decay to laminar,
+on the GPU to show (a) perturbation energy does NOT decay to laminar,
 (b) the mean profile is qualitatively log-law, (c) u_tau recovered
 within ~10% of the forcing balance (rho u_tau^2 = f_x delta =>
 u_tau = 1 exactly at statistical stationarity).
@@ -12,8 +12,7 @@ fluctuation energy here is a meaningful (if minimal) turbulence
 demonstration. Grid: dx+ = 5.6, dz+ = 2.8, first cell y+ ~ 0.2
 (tanh stretch g=2).
 
-  JAX_COMPILATION_CACHE_DIR=/root/.jax_cache \
-      python examples/channel_turb.py [T_total] [dt]
+        python examples/channel_turb.py [T_total] [dt]
 """
 
 import json
@@ -21,8 +20,11 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from fluca_tpu.utils import config  # noqa: E402
+
+config.use_compile_cache()
 
 import numpy as np
 
@@ -214,8 +216,8 @@ def main():
         },
     }
     out_path = (
-        "/root/repo/CHANNEL_TURB.json" if N == 64
-        else f"/root/repo/CHANNEL_TURB_{N}.json"
+        os.path.join(ROOT, "CHANNEL_TURB.json") if N == 64
+        else os.path.join(ROOT, f"CHANNEL_TURB_{N}.json")
     )
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)

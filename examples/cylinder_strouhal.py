@@ -4,8 +4,7 @@ Measured with this script (176x88 grid, 8 cells/diameter, CPU f64,
 t = 0..80): fully saturated shedding, St = 0.1641 (canonical 0.164),
 CL amplitude 0.224 constant from t=20, cd = 1.75 coarse / 1.47 at 16
 cells/diameter (lit. 1.33-1.45 + blockage). The measured CL/CD time
-series ships as cylinder_cl_series.npy. Runtime ~25 min CPU; minutes
-on TPU.
+series ships as cylinder_cl_series.npy. Runtime ~25 min CPU.
 """
 import jax
 jax.config.update('jax_platforms','cpu'); jax.config.update('jax_enable_x64', True)

@@ -7,7 +7,8 @@ Compiles the production-preset step over an N-virtual-device grid,
 walks the optimized HLO, and sums the shapes of every
 collective-permute / all-reduce / all-gather instruction — i.e. the
 bytes each device puts on the interconnect per step (on real hardware
-this traffic rides ICI; GSPMD emits the same SPMD program there).
+this traffic rides NVLink or the network; GSPMD emits the same SPMD
+program there).
 Compares the total against the SCALING.md halo surface model.
 
 Run (CPU, any machine):
@@ -17,9 +18,11 @@ Writes ICI_BYTES.json when run with --out.
 
 import json
 import re
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 
 _SHAPE_RE = re.compile(r"(f32|f64|bf16|s32|u32|pred)\[([\d,]*)\]")
@@ -148,8 +151,8 @@ def main():
             "bytes are per device per step from the optimized SPMD "
             "HLO (result shapes of collective ops); all-reduce "
             "bytes are operand sizes (a ring implementation moves "
-            "~2x). On TPU hardware this program's collectives ride "
-            "ICI; virtual CPU devices execute the identical SPMD "
+            "~2x). On GPUs this program's collectives go through "
+            "NCCL; virtual CPU devices execute the identical SPMD "
             "module, so the byte counts are hardware-accurate even "
             "though virtual-mesh TIMING is not."
         ),

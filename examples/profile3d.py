@@ -1,4 +1,4 @@
-"""Decompose the 3-D step cost at 128^3 (channel config) on TPU.
+"""Decompose the 3-D step cost at 128^3 (channel config) on the GPU.
 
 Strategy: the production preset runs fixed budgets (outer o, momentum
 m, Schur s). Timing steps/s while varying one budget at a time gives
@@ -7,15 +7,18 @@ one Schur CG iteration (1 DGst apply + 1 MG V-cycle), and one outer
 FGMRES iteration (1 coupled apply + 1 full ABF application) — measured
 in situ, with XLA fusion exactly as in the real step.
 
-Run:  JAX_COMPILATION_CACHE_DIR=/root/.jax_cache python examples/profile3d.py
+Run:  python examples/profile3d.py
 """
 
 import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from fluca_tpu.utils import config  # noqa: E402
+
+config.use_compile_cache()
 
 import numpy as np
 

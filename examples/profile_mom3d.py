@@ -1,13 +1,16 @@
 """Split the 3-D momentum BiCGStab iteration cost: A-apply vs vector
-ops, at 128^3 on TPU. Also measures the pure-traffic speed-of-light
+ops, at 128^3 on the GPU. Also measures the pure-traffic speed-of-light
 for an A-apply (sum of the fields a minimal kernel must touch).
 """
 
 import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from fluca_tpu.utils import config  # noqa: E402
+
+config.use_compile_cache()
 
 import numpy as np
 

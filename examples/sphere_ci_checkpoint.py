@@ -13,7 +13,8 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 os.environ["FLUCA_TPU_DTYPE"] = "float64"  # the test env's dtype
 
 import jax
@@ -42,5 +43,5 @@ while ns.t < 25.0:
     F = np.asarray(ibm.hydrodynamic_force(ns.state, ns.t, ns.rho))
     print(f"t={float(ns.t):6.2f} cd={float(F[0]/qA):.4f} "
           f"({time.time()-t0:.0f}s)", flush=True)
-save_checkpoint("/root/repo/tests/data/sphere_steady_t25", ns)
+save_checkpoint(os.path.join(ROOT, "tests/data/sphere_steady_t25"), ns)
 print("saved", flush=True)

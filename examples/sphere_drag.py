@@ -12,8 +12,8 @@ cd = 1.08-1.10 (Johnson & Patel JFM 1999 cd=1.08; Le Clair et al.
 1970 correlation 1.09).  Acceptance band 1.0-1.15 (small-domain
 blockage ~2% area adds a few %).
 
-Run on TPU (~10 min incl. compile):
-  JAX_COMPILATION_CACHE_DIR=/root/.jax_cache python examples/sphere_drag.py
+Run on the GPU:
+  python examples/sphere_drag.py
 
 Writes SPHERE128.json at the repo root, a CGNS solution file, and
 verifies CGNS restart at size: reload -> advance -> cd unchanged.
@@ -28,8 +28,11 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from fluca_tpu.utils import config  # noqa: E402
+
+config.use_compile_cache()
 
 import numpy as np
 
@@ -79,13 +82,6 @@ def main():
         retract=RETRACT,
     )
     ns.impl.cfg = CNLinearConfig.production(outer=3, mom=8, schur=8)
-    ops = ns.impl.ops
-    print(
-        f"kernels: mom3d={ops._mom_kernel3d is not None} "
-        f"chain3d={ops._chain3d is not None} "
-        f"mg={[l.pallas_apply is not None for l in ns.impl.mg.levels]}",
-        flush=True,
-    )
 
     t0 = time.time()
     ns.step()  # compile + first step
@@ -153,7 +149,7 @@ def main():
         "cells_per_diameter": round(D / (L / N_SPH), 1),
         "history": [[round(t, 2), round(c, 4)] for t, c in hist],
     }
-    path = "/root/repo/SPHERE128.json"
+    path = os.path.join(ROOT, "SPHERE128.json")
     prev, runs = {}, []
     if os.path.exists(path):
         try:

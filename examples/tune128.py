@@ -1,10 +1,10 @@
-"""TPU A/B of fixed-budget solver combos on the channel 128^3 f32
+"""A/B of fixed-budget solver combos on the channel 128^3 f32
 config (VERDICT r4 items 1+3): step time AND 30-step accuracy of each
 combo vs the reference-semantics production preset, plus a direct
 reproduction run of the production_fast (richardson outer) preset
 that diverged in the r3 bench.
 
-  JAX_COMPILATION_CACHE_DIR=/root/.jax_cache python examples/tune128.py
+  python examples/tune128.py
 """
 
 import json
@@ -12,8 +12,11 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from fluca_tpu.utils import config  # noqa: E402
+
+config.use_compile_cache()
 
 import jax
 import jax.numpy as jnp
@@ -118,7 +121,7 @@ def main():
             dv = np.abs(r["state"]["vx"] - ref["vx"]).max()
             row["max_dvx_vs_production"] = float(dv)
         summary.append(row)
-    with open("/root/repo/TUNE128.json", "w") as f:
+    with open(os.path.join(ROOT, "TUNE128.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary), flush=True)
 

@@ -1,18 +1,19 @@
-"""Diagnose the r4 cavity3d regression (80 -> 17 steps/s at
-64x64x32 f32): the production preset changed outer fgmres->gcr and
-the inner solves to Python-unrolled fixed-trip forms in the same
-round. Isolate which change is responsible at the small size.
+"""Time the cavity3d step at 64x64x32 f32 under the outer
+(fgmres / gcr) and inner (while-loop / unrolled fixed-trip) solver
+forms, to isolate what each costs at the small size.
 
-  JAX_COMPILATION_CACHE_DIR=/root/.jax_cache \
-      python examples/tune_cavity3d.py
+        python examples/tune_cavity3d.py
 """
 
 import json
 import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from fluca_tpu.utils import config  # noqa: E402
+
+config.use_compile_cache()
 
 
 def main():
@@ -51,7 +52,7 @@ def main():
 
     run("fgmres+while_loops (r3 form)", r3form)
 
-    with open("/root/repo/TUNE_CAVITY3D.json", "w") as f:
+    with open(os.path.join(ROOT, "TUNE_CAVITY3D.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out), flush=True)
 

@@ -1,7 +1,8 @@
-"""fluca_tpu — a TPU-native incompressible-flow CFD framework.
+"""fluca_tpu — an incompressible-flow CFD framework in JAX.
 
 A from-scratch re-design of the capabilities of thecasterian/fluca
-(PETSc/MPI/C) for TPU hardware using JAX/XLA/Pallas:
+(PETSc/MPI/C) for accelerators, using JAX/XLA; it runs on NVIDIA GPUs
+and, for tests, on the CPU:
 
 - ``fluca_tpu.mesh``    — distributed Cartesian staggered grids
   (reference: fluca/src/mesh/impl/cart/cart.c).
@@ -13,14 +14,14 @@ A from-scratch re-design of the capabilities of thecasterian/fluca
 - ``fluca_tpu.solvers`` — Krylov methods (CG/BiCGStab/FGMRES) and
   geometric multigrid, written in pure JAX over pytrees.
 - ``fluca_tpu.parallel``— device-mesh sharding and halo exchange
-  (the TPU equivalent of DMStag domain decomposition over MPI).
+  (the JAX equivalent of DMStag domain decomposition over MPI).
 - ``fluca_tpu.io``      — checkpoint/restart and CGNS-compatible output
   (reference: fluca/src/viewer/impl/flucacgns/flucacgns.c).
 
 Unlike the reference, operators are never assembled into sparse
 matrices: every operator is a matrix-free closure over precomputed
 per-axis stencil coefficient tables, applied as fused shifted-slice
-arithmetic that XLA lowers to bandwidth-bound vector code on TPU.
+arithmetic that XLA fuses into bandwidth-bound GPU kernels.
 """
 
 __version__ = "0.1.0"

@@ -19,12 +19,21 @@ from fluca_tpu.mesh.cart import CartMesh
 from fluca_tpu.ns.bc import BCType, BoundaryCondition, zero_velocity_bc
 from fluca_tpu.ns.monitor import monitor_default
 from fluca_tpu.ns.ns import NS
+from fluca_tpu.utils import config
 from fluca_tpu.utils.options import global_options
 
 
 def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+def run(argv=None) -> NS:
+    """Build, solve and write out the case the options describe;
+    returns the solved NS object."""
     argv = sys.argv[1:] if argv is None else argv
     fluca_tpu.initialize(argv)
+    config.use_compile_cache()
     opts = global_options()
 
     # mesh from options or from a CGNS file (main.c:36-48)
@@ -120,7 +129,7 @@ def main(argv=None) -> int:
         from fluca_tpu.utils.profiling import global_log
 
         print(global_log.view())
-    return 0
+    return ns
 
 
 if __name__ == "__main__":

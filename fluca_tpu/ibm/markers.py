@@ -4,8 +4,9 @@ Gather/scatter form (the BASELINE.json "IBM delta-function
 interpolation/spreading as gather/scatter kernels over Lagrangian
 markers"): each marker owns a static (support x support [x support])
 window of cells; interpolation is a gather-weighted sum, spreading a
-scatter-add — both fully vectorized over markers, static shapes, XLA
-lowers the scatter to efficient TPU updates.
+scatter-add — both fully vectorized over markers, static shapes. On
+a GPU XLA lowers the scatter-add to atomics, so the summation order
+(and the last bits of a spread field) can differ from run to run.
 
 Requires locally uniform grid spacing around the body (standard IBM
 restriction; the delta kernels assume it).

@@ -1,6 +1,6 @@
 """CGNS-compatible output (HDF5 flavor) + reader.
 
-TPU-native equivalent of the reference's ``flucacgns`` viewer
+JAX-side equivalent of the reference's ``flucacgns`` viewer
 (fluca/src/viewer/impl/flucacgns/flucacgns.c) and the Cartesian mesh
 CGNS write/load (fluca/src/mesh/impl/cart/cartcgns.c): structured
 zone with vertex coordinates, cell-centered ``FlowSolution<step>``
@@ -245,7 +245,7 @@ class CGNSWriter:
         face-normal velocity as UserDefinedData (cartcgns.c:293-401).
 
         In a multi-process run the write is distributed: each process
-        writes only the hyperslabs its shards own (the TPU-native
+        writes only the hyperslabs its shards own (the distributed
         equivalent of the reference's collective cgp_field_write_data,
         flucacgns.c:241-242)."""
         import jax

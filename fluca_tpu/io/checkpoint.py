@@ -47,7 +47,7 @@ def save_checkpoint(path: str, ns) -> None:
     stream through the native fastio engine (fluca_tpu.native) when
     available, falling back to npz. In a multi-process run (or when
     the state is not fully addressable) each process writes only its
-    own shards plus a per-process manifest — the TPU-native equivalent
+    own shards plus a per-process manifest — the JAX equivalent
     of the reference's collective MPI-IO writes (cgp_*_write_data,
     flucacgns.c:241-242); no process ever needs to address the whole
     array."""

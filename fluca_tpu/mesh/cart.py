@@ -1,13 +1,13 @@
 """Distributed Cartesian staggered grid.
 
-TPU-native re-design of MESHCART (reference:
+JAX re-design of MESHCART (reference:
 fluca/src/mesh/impl/cart/cart.c). The reference builds four compatible
 DMStag objects (cell scalar ``sdm``, cell vector ``vdm``, face scalar
 ``Sdm``, face vector ``Vdm``) sharing one product coordinate DM
 (cart.c:85-150) and distributes them over an MPI rank grid with
 halo-exchange scatters. Here a mesh is a light host-side object holding
 per-axis coordinate arrays (numpy, float64 at setup); fields are dense
-JAX arrays whose distribution over a TPU device mesh is expressed with
+JAX arrays whose distribution over a device mesh is expressed with
 ``jax.sharding`` (see fluca_tpu.parallel) — halo exchange is emitted by
 XLA/GSPMD rather than hand-written scatters.
 

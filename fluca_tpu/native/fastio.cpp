@@ -2,7 +2,7 @@
 //
 // The reference's checkpoint path is native C end-to-end (parallel
 // CGNS/HDF5 via pcgnslib + MPI-IO, fluca/src/viewer/impl/flucacgns/
-// flucacgns.c); this is the TPU framework's native-runtime
+// flucacgns.c); this is the framework's native-runtime
 // counterpart for the high-volume path: raw chunked pwrite/pread of
 // field buffers with CRC32 integrity, bypassing Python-level copies
 // and zip containers (numpy savez) that dominate at 512^3-scale

@@ -129,7 +129,7 @@ class NS:
         placed with grid-axis NamedShardings and every compiled step
         (including the multi_step scan fast path) constrains its
         carries to that sharding, so GSPMD emits halo
-        collective-permutes over ICI and psum allreduces for the
+        collective-permutes between devices and psum allreduces for the
         Krylov reductions.
 
         ``grid`` is a parallel.mesh.DeviceGrid; or pass ``shape``

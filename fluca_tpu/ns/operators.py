@@ -1,6 +1,6 @@
 """Matrix-free NS operators over per-axis stencil tables.
 
-TPU-native equivalent of the reference's assembled MATNEST blocks
+Matrix-free equivalent of the reference's assembled MATNEST blocks
 (fluca/src/ns/impl/linearcn/cnlinearcart2d.c builders; 3-D:
 cnlinearcart3d.c). Each operator is a closure over precomputed device
 coefficient bands; application is fused shifted-slice arithmetic.
@@ -27,8 +27,8 @@ Operators (reference THEORY_GUIDE.md:136-198):
 
 from __future__ import annotations
 
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
 from jax import lax
 
 from fluca_tpu.mesh.cart import CartMesh
@@ -174,124 +174,6 @@ class NSOperators:
             (float(mesh.widths(d)[0]), float(mesh.widths(d)[-1]))
             for d in range(dim)
         ]
-
-        # optional fused Pallas momentum kernel (2-D, TPU); covers
-        # the tridiagonal part plus the +-2 boundary-row Laplacian
-        # planes (see ops/pallas_stencil.build_momentum_apply_2d)
-        self._mom_kernel = None
-        # 3-D fused A-apply: coefficients formed in-kernel from the
-        # 1-D bands + face-factor fields (build_momentum_apply_3d);
-        # (prep, apply) pair, or None -> XLA banded path
-        self._mom_kernel3d = None
-        # fused interp/div/grad chain stages (ops/pallas_chain3d):
-        # coupled epilogue + ABF pre/post in one pass each
-        self._chain3d = None
-        # kernel liveness/causes for diagnostics (bench, -log_view):
-        # name -> "live" | "off: <reason>" | "error: <exception>"
-        self.kernel_status = {}
-        self._build_kernels()
-
-    def _build_kernels(self) -> None:
-        """(Re)build every single-device fused Pallas kernel this
-        operator set can use. Called at construction and again by
-        CNLinearSolver.set_device_grid(None) to restore the
-        single-device kernels after an un-shard (shard_map wrappers /
-        nulled kernels are replaced wholesale).
-
-        A kernel builder failure is recorded in ``kernel_status``
-        (never silently swallowed: a Mosaic regression otherwise
-        downgrades the hot path to the XLA banded apply with no
-        signal but a slower bench). Set FLUCA_TPU_STRICT_KERNELS=1 to
-        raise instead of falling back."""
-        import os
-
-        mesh, axbcs, dtype, dim = (
-            self.mesh, self.axbcs, self.dtype, self.dim
-        )
-        strict = os.environ.get("FLUCA_TPU_STRICT_KERNELS") == "1"
-        self._mom_kernel = None
-        self._mom_kernel3d = None
-        self._chain3d = None
-
-        if os.environ.get("FLUCA_TPU_DISABLE_PALLAS") == "1":
-            self.kernel_status = {"all": "off: FLUCA_TPU_DISABLE_PALLAS"}
-            return
-
-        def build(name, fn):
-            try:
-                out = fn()
-            except Exception as e:  # noqa: BLE001 - cause recorded
-                if strict:
-                    raise
-                self.kernel_status[name] = (
-                    f"error: {type(e).__name__}: {e}"
-                )
-                return None
-            self.kernel_status[name] = (
-                "live" if out is not None
-                else self.kernel_status.get(name, "off: unavailable")
-            )
-            return out
-
-        if dim == 2:
-            def mk2d():
-                from fluca_tpu.ops.pallas_stencil import (
-                    build_momentum_apply_2d,
-                    pallas_available,
-                )
-
-                if not pallas_available():
-                    self.kernel_status["mom2d"] = "off: no TPU"
-                    return None
-                if mesh.N[0] % 8:
-                    self.kernel_status["mom2d"] = (
-                        f"off: N0={mesh.N[0]} not 8-aligned"
-                    )
-                    return None
-                return build_momentum_apply_2d(
-                    mesh.N[0], mesh.N[1],
-                    mesh.periodic[0], mesh.periodic[1], dtype,
-                )
-
-            self._mom_kernel = build("mom2d", mk2d)
-        elif dim == 3:
-            def mk3d():
-                from fluca_tpu.ops.pallas_stencil import (
-                    build_momentum_apply_3d,
-                    pallas_available,
-                )
-
-                if not pallas_available():
-                    self.kernel_status["mom3d"] = "off: no TPU"
-                    return None
-                return build_momentum_apply_3d(
-                    mesh, axbcs, self.rho, self.mu, self.dt, dtype,
-                )
-
-            self._mom_kernel3d = build("mom3d", mk3d)
-            # opt-in (FLUCA_TPU_CHAIN3D=1): stage-level slope timing on
-            # v5e (2026-08-20, examples/profile128.py) shows the fused
-            # chain makes the coupled apply SLOWER than the XLA
-            # shifted-slice path at 128^3 (0.618 vs 0.513 ms) and cost
-            # ~2 steps/s on the cavity3d bench — XLA already fuses the
-            # interp/div/grad sweeps well at these op intensities. The
-            # kernels stay correct (tests/test_chain3d.py) for shapes
-            # where a future measurement flips the verdict.
-            if os.environ.get("FLUCA_TPU_CHAIN3D") == "1":
-                def mkchain():
-                    from fluca_tpu.ops.pallas_chain3d import Chain3D
-                    from fluca_tpu.ops.pallas_stencil import (
-                        pallas_available,
-                    )
-
-                    if not pallas_available():
-                        self.kernel_status["chain3d"] = "off: no TPU"
-                        return None
-                    return Chain3D(
-                        mesh, axbcs, self.rho, self.dt, dtype
-                    )
-
-                self._chain3d = build("chain3d", mkchain)
 
     # ------------------------------------------------------------------
     # slice helpers
@@ -472,55 +354,8 @@ class NSOperators:
             ) + 1.0
         return {"self": selfc, "cross": cross}
 
-    def build_momentum_coeffs_stacked(self, U0, v0f):
-        """Pack the coefficient fields into the (26, N0, N1) layout of
-        the fused momentum kernel (2-D): 18 tridiagonal planes + 8
-        boundary-row +-2 planes (see
-        ops/pallas_stencil.build_momentum_apply_2d)."""
-        C = self.build_momentum_coeffs(U0, v0f)
-        zeros = jnp.zeros(self.mesh.cell_shape, self.dtype)
-        order = [
-            (0, "self", 0), (0, "self", 1), (0, "cross", 1),
-            (1, "self", 0), (1, "self", 1), (1, "cross", 0),
-        ]
-        planes = []
-        for c, kind, d in order:
-            table = C[kind][c][d]
-            for off in (-1, 0, 1):
-                planes.append(table.get(off, zeros))
-        for c in range(2):
-            for d in range(2):
-                table = C["self"][c][d]
-                for off in (-2, 2):
-                    planes.append(table.get(off, zeros))
-        return jnp.stack(planes)
-
-    def apply_A_stacked(self, v, w_stack):
-        """Fused Pallas A-apply (boundary +-2 terms included in the
-        kernel planes)."""
-        out_u, out_v = self._mom_kernel(w_stack, v[0], v[1])
-        return (out_u, out_v)
-
-    @property
-    def has_momentum_kernel(self) -> bool:
-        return self._mom_kernel is not None
-
-    @property
-    def has_momentum_kernel3d(self) -> bool:
-        return self._mom_kernel3d is not None
-
-    def build_momentum_factors_3d(self, U0, v0f):
-        """Per-step face-factor prep for the fused 3-D A-apply."""
-        return self._mom_kernel3d[0](U0, v0f)
-
     def apply_A_coeffs(self, v, coeffs):
         """A v via precomputed coefficient fields."""
-        if isinstance(coeffs, dict) and "FU" in coeffs:
-            return self._mom_kernel3d[1](v, coeffs)
-        if isinstance(coeffs, jnp.ndarray) or not isinstance(
-            coeffs, dict
-        ):
-            return self.apply_A_stacked(v, coeffs)
         dim = self.dim
         out = []
         for c in range(dim):

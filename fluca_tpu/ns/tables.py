@@ -1,6 +1,6 @@
 """Per-axis stencil coefficient tables for the CNLinear NS scheme.
 
-TPU-native equivalent of the reference's closed-form non-uniform-grid
+JAX-side equivalent of the reference's closed-form non-uniform-grid
 FD coefficient library (fluca/src/ns/utils/cartdiscret.c) combined with
 the per-boundary-condition assembly switches of
 fluca/src/ns/impl/linearcn/cnlinearcart2d.c (2-D) / cnlinearcart3d.c

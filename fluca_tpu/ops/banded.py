@@ -1,6 +1,6 @@
 """Matrix-free banded stencil application along one grid axis.
 
-This is the TPU-native replacement for the reference's assembled DMStag
+This is the JAX replacement for the reference's assembled DMStag
 matrices and matrix-free FlucaFDApply sweep (fluca/src/fd/interface/
 fdapply.c:47-121). An operator along axis ``d`` is a small dict
 ``{offset: coeffs}`` where ``coeffs`` is a 1-D array over the output
@@ -10,7 +10,7 @@ index; application is
 
 implemented with static slices + zero padding (or rolls for periodic
 axes), which XLA fuses into a single bandwidth-bound elementwise kernel
-— the idiomatic TPU form of a stencil sweep. Boundary-modified rows are
+— the idiomatic XLA form of a stencil sweep. Boundary-modified rows are
 baked into the coefficient tables at setup time so shapes stay static
 (no data-dependent control flow under jit).
 

@@ -1,6 +1,6 @@
 """Composable finite-difference operator algebra (FlucaFD equivalent).
 
-TPU-native re-design of the reference's general-purpose discretization
+JAX re-design of the reference's general-purpose discretization
 layer (fluca/src/fd/*): symbolic stencil operators over staggered
 Cartesian grids with five combinators — derivative, sum, scale,
 composition, second-order TVD (fluca/src/fd/impls/*) — and per-boundary

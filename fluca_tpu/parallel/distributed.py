@@ -1,10 +1,10 @@
 """Multi-host initialization.
 
 The reference's world is a static MPI communicator created by
-PetscInitialize (flucainit.c:14-18); the TPU equivalent is
-``jax.distributed.initialize`` — one process per host, devices
-spanning a pod slice, collectives over ICI within a slice and DCN
-across slices. Call before any jax computation on multi-host
+PetscInitialize (flucainit.c:14-18); the JAX equivalent is
+``jax.distributed.initialize`` — one process per host (or per GPU),
+collectives over NVLink within a host and the network across
+hosts. Call before any jax computation on multi-host
 deployments; single-host/single-process runs need nothing.
 """
 

@@ -2,7 +2,7 @@
 
 The GSPMD path (parallel/mesh.py) lets XLA infer halo communication
 from shifted-slice ops. This module is the explicit alternative — the
-direct TPU analogue of the reference's DMGlobalToLocal ghost scatters
+direct JAX analogue of the reference's DMGlobalToLocal ghost scatters
 (fluca/src/mesh/impl/cart/cart.c:88-104, SURVEY.md §5): per-axis
 ``lax.ppermute`` neighbor exchanges of boundary slabs into ghost
 layers, inside ``shard_map``. Used where communication scheduling must
@@ -128,7 +128,7 @@ def stencil_apply_sharded_overlapped(grid: DeviceGrid, bands_per_axis,
     apply (pure local data, zero-filled at shard edges) runs with no
     dependency on them, and the received boundary slabs fold in last
     as one-line corrections. XLA's latency-hiding scheduler can then
-    run the ICI transfers concurrently with the interior compute — the
+    run the halo transfers concurrently with the interior compute — the
     double-buffered DMGlobalToLocal overlap of SURVEY §7 (build-plan
     item 7), expressed as dataflow instead of explicit buffers.
 

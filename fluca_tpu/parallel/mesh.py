@@ -1,12 +1,12 @@
 """Device-mesh domain decomposition.
 
-The TPU-native replacement for the reference's only parallelism
+The JAX replacement for the reference's only parallelism
 strategy: block-structured decomposition of the Cartesian grid over an
 MPI rank grid with DMStag halo exchange (reference:
 fluca/src/mesh/impl/cart/cart.c:88-104 ownership/halo setup; SURVEY.md
 component #23). Here the grid axes are sharded over a logical device
 mesh with ``jax.sharding.NamedSharding``; XLA/GSPMD inserts the halo
-collectives (collective-permute over ICI) for every shifted-slice
+collectives (collective-permute between devices) for every shifted-slice
 stencil access, and ``psum``-style allreduces for the Krylov dot
 products — the structural equivalents of ``DMGlobalToLocal`` and
 ``VecDot``'s MPI_Allreduce.

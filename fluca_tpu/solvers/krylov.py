@@ -2,9 +2,9 @@
 
 The KSP-equivalent layer: CG, BiCGStab and flexible GMRES, written
 with ``lax.while_loop``/``lax.fori_loop`` so an entire solve compiles
-into one XLA program (no host round-trips per iteration — the TPU
+into one XLA program (no host round-trips per iteration — the
 analogue of PETSc KSP where every MatMult/VecDot is a kernel+allreduce;
-here XLA emits fused stencil kernels and ICI psums).
+here XLA emits fused stencil kernels and cross-device psums).
 
 All solvers accept:
   A       : pytree -> pytree linear operator
@@ -31,6 +31,10 @@ from jax import lax
 from jax.flatten_util import ravel_pytree
 
 
+# f32 products stay f32: a GPU may otherwise run them in TF32
+_HIGHEST = lax.Precision.HIGHEST
+
+
 # ----------------------------------------------------------------------
 # pytree vector algebra
 # ----------------------------------------------------------------------
@@ -48,7 +52,7 @@ def tree_dot(a, b):
         if jnp.dtype(x.dtype).itemsize < 4:
             d = jnp.sum((x * y).astype(jnp.float32))
         else:
-            d = jnp.vdot(x, y)
+            d = jnp.vdot(x, y, precision=_HIGHEST)
         tot = d if tot is None else tot + d
     return tot
 
@@ -210,10 +214,7 @@ def _nz(x):
 # rtol=1e-30 the while_loop variants never exit early either, so the
 # iterates are the same — what the fixed forms remove is the
 # data-dependent scalar cond (a device-serializing sync point per
-# iteration) and the per-iteration residual-norm reduction. Measured
-# on v5e at 128^3 (PROFILE128.json): the production step's
-# while-loop solvers cost ~29 ms over the sum of their own parts;
-# the unrolled forms close most of that.
+# iteration) and the per-iteration residual-norm reduction.
 # ----------------------------------------------------------------------
 
 def cg_fixed(A, b, iters: int, M=None, project=None) -> KrylovResult:
@@ -406,7 +407,9 @@ def fgmres(
             # modified Gram-Schmidt
             def mgs(i, wh):
                 w, h = wh
-                hij = jnp.where(i <= j, jnp.vdot(V[i], w), 0.0)
+                hij = jnp.where(
+                    i <= j, jnp.vdot(V[i], w, precision=_HIGHEST), 0.0
+                )
                 w = w - hij * V[i]
                 return (w, h.at[i].set(hij))
 
@@ -468,12 +471,12 @@ def fgmres(
             j = nit - 1 - jj
             valid = j >= 0
             hj = jnp.where(valid, H[j, j], 1.0)
-            rowsum = jnp.dot(H[j, :], y)
+            rowsum = jnp.dot(H[j, :], y, precision=_HIGHEST)
             yj = (g[j] - rowsum) / _nz(hj)
             return jnp.where(valid, y.at[j].set(yj), y)
 
         y = lax.fori_loop(0, m, backsub, y)
-        xf = xf + jnp.dot(y, Z)
+        xf = xf + jnp.dot(y, Z, precision=_HIGHEST)
         rnorm = jnp.abs(g[nit])
         return xf, rnorm, nit
 

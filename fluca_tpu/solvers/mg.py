@@ -26,7 +26,11 @@ import numpy as np
 
 from fluca_tpu.mesh.cart import CartMesh
 from fluca_tpu.ns import tables as T_
-from fluca_tpu.ops.banded import apply_axis_stencil, compose_axis_stencils
+from fluca_tpu.ops.banded import (
+    _broadcast_1d,
+    apply_axis_stencil,
+    compose_axis_stencils,
+)
 
 
 @dataclass
@@ -34,11 +38,9 @@ class _Level:
     mesh: CartMesh
     dgst_bands: list  # per-axis composed D@Gst (cell->cell) bands
     vol: jnp.ndarray  # scale * cell volumes (operator row weights)
+    vol_axes: tuple  # per-axis 1-D factors whose product is vol
     cellvol: jnp.ndarray  # plain cell volumes (rhs symmetrization)
     inv_diag: jnp.ndarray  # 1 / diag(Shat)
-    pallas_apply: object = None  # fused TPU kernel (set when eligible)
-    pallas_residual: object = None  # fused b - Shat x
-    pallas_smooth: object = None  # fused damped-Jacobi sweep
     cheb_lmax: object = None  # Chebyshev smoothing upper bound
     host_dgst: tuple = ()  # per-axis host-f64 AxisStencils (coarse solve)
     host_vol: object = None  # scale * cell volumes, host f64
@@ -65,10 +67,22 @@ def _build_level(mesh: CartMesh, axbcs, scale: float, dtype) -> _Level:
 
     vol = mesh.cell_volumes()
     inv_diag = 1.0 / np.where(diag == 0.0, 1.0, scale * vol * diag)
+    # the cell volumes are an outer product of the widths: applying
+    # them as broadcast 1-D factors keeps the dense volume array out
+    # of every operator apply (one memory stream fewer)
+    vol_axes = tuple(
+        _broadcast_1d(
+            jnp.asarray(mesh.widths(d) * (scale if d == 0 else 1.0),
+                        dtype),
+            dim, d,
+        )
+        for d in range(dim)
+    )
     return _Level(
         mesh=mesh,
         dgst_bands=dgst_bands,
         vol=jnp.asarray(scale * vol, dtype),
+        vol_axes=vol_axes,
         cellvol=jnp.asarray(vol, dtype),
         inv_diag=jnp.asarray(inv_diag, dtype),
         host_dgst=tuple(host_dgst),
@@ -122,11 +136,6 @@ class PoissonMG:
                 break
             m = mc
 
-        # fused Pallas SpMV on TPU for large-enough levels (the XLA
-        # banded path materializes shifted copies; see
-        # ops/pallas_stencil.py)
-        self._build_pallas_kernels()
-
         # Chebyshev smoothing bounds: lambda_max of the
         # Jacobi-preconditioned operator per level via power iteration
         # (host-driven, setup time); smooth on [lmax/4, 1.05*lmax]
@@ -172,122 +181,8 @@ class PoissonMG:
         self._coarse_pinv = jnp.asarray(np.linalg.pinv(A), dtype)
 
     # ------------------------------------------------------------------
-    def _build_pallas_kernels(self) -> None:
-        """Single-device fused kernels for large-enough levels."""
-        import os
-
-        if os.environ.get("FLUCA_TPU_DISABLE_PALLAS") == "1":
-            return
-        try:
-            from fluca_tpu.ops.pallas_stencil import (
-                build_poisson_apply_2d,
-                build_poisson_apply_3d,
-                build_poisson_residual_2d,
-                build_poisson_residual_3d,
-                build_poisson_smooth_2d,
-                build_poisson_smooth_3d,
-                pallas_available,
-            )
-        except Exception:  # pragma: no cover - fallback to XLA
-            return
-        if not pallas_available():
-            return
-        dim = self.levels[0].mesh.dim
-        for lvl in self.levels:
-            n = lvl.mesh.N
-            if int(np.prod(n)) < 256 * 256:
-                continue
-            # per-level try: an oversized level (e.g. a cross-section
-            # past the VMEM budget, which the 3-D builders reject at
-            # build time) must not disable Pallas on the others
-            try:
-                if dim == 2 and n[0] % 8 == 0:
-                    lvl.pallas_apply = build_poisson_apply_2d(lvl)
-                    lvl.pallas_residual = build_poisson_residual_2d(
-                        lvl
-                    )
-                    if self.smoother == "jacobi":
-                        lvl.pallas_smooth = build_poisson_smooth_2d(
-                            lvl, self.omega
-                        )
-                elif dim == 3:
-                    # builders clamp the slab tile to the VMEM budget
-                    # (mode-aware) and raise when even TM=1 cannot fit
-                    lvl.pallas_apply = build_poisson_apply_3d(lvl)
-                    lvl.pallas_residual = build_poisson_residual_3d(
-                        lvl
-                    )
-                    if self.smoother == "jacobi":
-                        lvl.pallas_smooth = build_poisson_smooth_3d(
-                            lvl, self.omega
-                        )
-            except Exception:  # pragma: no cover
-                lvl.pallas_apply = None
-                lvl.pallas_residual = None
-                lvl.pallas_smooth = None
-
-    def set_device_grid(self, grid, *, interpret=None) -> None:
-        """Rebuild the per-level fused kernels to run under the device
-        grid (shard_map + ppermute halo edges; VERDICT r2 item 1 —
-        previously sharding disabled every kernel and the solver fell
-        back to the XLA banded path). Levels that do not decompose
-        evenly (or are below the kernel-size threshold) stay on the
-        XLA/GSPMD path. ``grid=None`` restores single-device kernels.
-
-        ``interpret`` forces Pallas interpret mode (CPU tests); by
-        default kernels are built only on TPU."""
-        import os
-
-        if os.environ.get("FLUCA_TPU_DISABLE_PALLAS") == "1":
-            return
-        from fluca_tpu.ops.pallas_stencil import pallas_available
-
-        if interpret is None:
-            if not pallas_available():
-                for lvl in self.levels:
-                    lvl.pallas_apply = None
-                    lvl.pallas_residual = None
-                    lvl.pallas_smooth = None
-                return
-            interpret = False
-        if grid is None or grid.mesh.devices.size == 1:
-            # no grid, or a degenerate 1-device grid (sharding is
-            # trivial): the plain single-device kernels are exactly
-            # the no-regression path
-            self._build_pallas_kernels()
-            return
-        from fluca_tpu.parallel.pallas_sharded import (
-            build_poisson_sharded,
-        )
-
-        for lvl in self.levels:
-            lvl.pallas_apply = None
-            lvl.pallas_residual = None
-            lvl.pallas_smooth = None
-            n = lvl.mesh.N
-            if int(np.prod(n)) < 256 * 256:
-                continue
-            try:
-                lvl.pallas_apply = build_poisson_sharded(
-                    grid, lvl, mode="apply", interpret=interpret
-                )
-                lvl.pallas_residual = build_poisson_sharded(
-                    grid, lvl, mode="residual", interpret=interpret
-                )
-                if self.smoother == "jacobi":
-                    lvl.pallas_smooth = build_poisson_sharded(
-                        grid, lvl, mode="smooth", omega=self.omega,
-                        interpret=interpret,
-                    )
-            except Exception:
-                lvl.pallas_apply = None
-                lvl.pallas_residual = None
-                lvl.pallas_smooth = None
-
     def _apply_level(self, lvl: _Level, p):
         """Shat p on one level: fused per-axis banded sweeps."""
-        if lvl.pallas_apply is not None:
-            return lvl.pallas_apply(p)
         mesh = lvl.mesh
         acc = None
         for d in range(mesh.dim):
@@ -295,7 +190,10 @@ class PoissonMG:
                 lvl.dgst_bands[d], p, d, mesh.N[d], mesh.periodic[d]
             )
             acc = t if acc is None else acc + t
-        return -lvl.vol * acc
+        vol = lvl.vol_axes[0]
+        for w in lvl.vol_axes[1:]:
+            vol = vol * w
+        return -vol * acc
 
     def apply_op(self, p):
         """Top-level operator Shat (for CG)."""
@@ -312,18 +210,12 @@ class PoissonMG:
     def _smooth(self, lvl, x, b, n):
         if self.smoother == "chebyshev" and lvl.cheb_lmax is not None:
             return self._smooth_cheby(lvl, x, b, n)
-        if lvl.pallas_smooth is not None:
-            for _ in range(n):
-                x = lvl.pallas_smooth(x, b, lvl.inv_diag)
-            return x
         for _ in range(n):
             r = b - self._apply_level(lvl, x)
             x = x + self.omega * lvl.inv_diag * r
         return x
 
     def _residual(self, lvl, x, b):
-        if lvl.pallas_residual is not None:
-            return lvl.pallas_residual(x, b)
         return b - self._apply_level(lvl, x)
 
     def _smooth_cheby(self, lvl, x, b, n):
@@ -371,7 +263,11 @@ class PoissonMG:
     def _vcycle(self, li, x, b):
         lvl = self.levels[li]
         if li == len(self.levels) - 1:
-            xf = jnp.matmul(self._coarse_pinv, b.ravel())
+            # HIGHEST: a GPU may otherwise run an f32 product in TF32
+            xf = jnp.matmul(
+                self._coarse_pinv, b.ravel(),
+                precision=jax.lax.Precision.HIGHEST,
+            )
             return xf.reshape(lvl.mesh.cell_shape)
         x = self._smooth(lvl, x, b, self.nu_pre)
         r = self._residual(lvl, x, b)

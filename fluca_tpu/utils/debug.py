@@ -1,7 +1,7 @@
 """Debug / sanity checking.
 
 The reference relies on PETSc debug-mode argument checking and
-NSCheckDiverged (nsbasic.c:425-436); the TPU-native equivalents here:
+NSCheckDiverged (nsbasic.c:425-436); the JAX equivalents here:
 field-level finiteness checks, a divergence (continuity residual)
 probe, and jax_debug_nans toggling (SURVEY.md §5 'race detection /
 sanitizers' translation).

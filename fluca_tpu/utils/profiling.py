@@ -2,7 +2,7 @@
 
 Reference: PETSc log events MESH_SetUp, NS_SetUp, NS_Step,
 NS_FormJacobian, NS_FormFunction + -log_view (fluca/src/ns/interface/
-nspkg.c:21-34, SURVEY.md §5). TPU equivalent: named trace annotations
+nspkg.c:21-34, SURVEY.md §5). JAX equivalent: named trace annotations
 that show up in jax.profiler traces, plus host-side wall-clock event
 accumulation printable as a -log_view-style table.
 """

@@ -1,6 +1,4 @@
-"""Reduced-precision ABF preconditioner plumbing in the suite
-(VERDICT r4 weak #5: precond_dtype/precond_scope were exercised only
-by TPU-only example scripts).
+"""Reduced-precision ABF preconditioner plumbing in the suite.
 
 CPU coverage runs the SAME plumbing — the precond-dtype twin MG
 hierarchy, the _precond_ctx cast/rebuild paths, the fixed-trip inner
@@ -9,13 +7,14 @@ precond_dtype="float32" under an f64 solve. bfloat16 itself cannot be
 compile-tested on CPU at ANY size: XLA CPU scalarizes bf16 step
 programs (measured 2026-08-21: one 8x8 cavity bf16 step sat >30 min
 in compile where the f32 twin takes seconds; CLAUDE.md documents the
-same at 16^2), so the bf16 numerics run on TPU via
-examples/validate_bf16_tpu.py and the TUNE_BUDGET_TPU.json pins.
+same at 16^2), so the bf16 numerics run on the GPU, in the channel
+512x256x256 phase of chip_smoke.py (retention gate) and in the
+gpu-marked test below.
 
 The ABF preconditioner runs under a FLEXIBLE outer iteration, so a
 reduced-precision M changes the contraction rate, never the converged
 answer — at fixed budgets the solution must stay close to the
-full-precision one (ns/cnlinear.py:108-121).
+full-precision one (CNLinearConfig.precond_dtype).
 """
 
 import numpy as np
@@ -90,13 +89,11 @@ def test_f32_production_presets_tiny_cavity():
         np.testing.assert_allclose(g, r, atol=2e-3 * scale)
 
 
-@pytest.mark.skipif(
-    True, reason="bf16 step programs cannot be compiled on XLA CPU "
-    "in reasonable time at ANY size (>30 min for one 8x8 step, "
-    "measured 2026-08-21); bf16 numerics are validated on TPU by "
-    "examples/validate_bf16_tpu.py + the channel512 bench gates",
-)
-def test_bf16_precond_cavity2d_matches_f32():  # pragma: no cover
+@pytest.mark.gpu
+def test_bf16_precond_cavity2d_matches_f32(gpu):
+    # bf16 step programs cannot be compiled on XLA CPU in reasonable
+    # time at any size (>30 min for one 8x8 step), so this runs on
+    # the GPU only
     cfg = CNLinearConfig.production(3, 8, 6)
     cfg.precond_dtype = "bfloat16"
     got = _run_cavity(cfg, dtype=jnp.float32)

@@ -6,8 +6,8 @@ This closes the reference's biggest test-harness gap: its ctest
 runner parses `nsize` but runs every test on 1 MPI rank
 (fluca/cmake/FlucaTestUtils.cmake:109-111), so multi-rank behavior is
 never exercised in CI. Here the collectives really cross a process
-boundary (Gloo transport), exactly as they would cross hosts on a
-multi-host TPU deployment via jax.distributed.initialize
+boundary (Gloo transport), exactly as they would cross hosts in a
+multi-host GPU deployment via jax.distributed.initialize
 (fluca_tpu.parallel.distributed).
 """
 

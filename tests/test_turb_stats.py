@@ -2,7 +2,7 @@
 seeded CI-scale checks of the u_tau / fluctuation-energy / mean-
 profile computations that back CHANNEL_TURB.json (VERDICT r3 item
 6's CI-scale regression — the statistics, since actual sustained
-turbulence needs the TPU-scale run)."""
+turbulence needs the full-size GPU run)."""
 
 import numpy as np
 
@@ -12,9 +12,11 @@ from fluca_tpu.models.channel import setup_channel_3d
 
 
 def _stats(ns):
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     from examples.channel_turb import turb_stats
 
     return turb_stats(ns)
